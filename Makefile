@@ -1,11 +1,9 @@
 # mazu_tpu build/test/bench entry points
 
-.PHONY: native test test-fast bench clean
+.PHONY: native test test-fast bench smoke clean
 
-native: native/libmazu_host.so
-
-native/libmazu_host.so: native/mazu_host.cpp
-	g++ -O3 -march=native -fopenmp -shared -fPIC -o $@ $<
+native:
+	python -c "from mazu_tpu.io.native import have_native, library_path; assert have_native(); print(library_path())"
 
 test: native
 	python -m pytest tests/ -q
@@ -16,6 +14,9 @@ test-fast: native
 bench:
 	python bench.py
 
+smoke:
+	python chip_smoke.py
+
 clean:
-	rm -f native/libmazu_host.so
+	rm -rf native/build
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -1,4 +1,4 @@
-"""500Mbp end-to-end host build proof (VERDICT item 8).
+"""500Mbp end-to-end host build proof.
 
 Run: timeout 1800 python host_build_500m.py > /tmp/build500m.out 2>&1
 """
@@ -15,7 +15,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-import bench  # noqa: E402
+from mazu_tpu.synth import genome_parts  # noqa: E402
 from mazu_tpu.kmer import revcomp  # noqa: E402
 from mazu_tpu.kphf.sshash import SSHash, sshash_k2u  # noqa: E402
 
@@ -26,7 +26,7 @@ def main():
     skew = int(os.environ.get("MAZU_PROOF_SKEW", 8))
     T0 = time.time()
     t0 = time.time()
-    unitigs, refs, u2pos = bench.build_synthetic(bases)
+    unitigs, refs, u2pos = genome_parts(bases)
     print(f"[synth {bases/1e6:.0f}Mbp] {time.time()-t0:.1f}s", flush=True)
     t1 = time.time()
     k2u = SSHash.from_unitig_set(

@@ -1,7 +1,7 @@
-"""Profile the host-side index build at scale (CPU only, no TPU).
+"""Profile the host-side index build at scale (CPU only).
 
 Times the synthetic build stages at a given scale (default 50 Mbp) to find
-what must be parallelized for the 500 Mbp target (VERDICT item 8).
+what must be parallelized for the 500 Mbp target.
 
 Run: MAZU_PROFILE_BASES=50000000 python host_build_profile.py
 """
@@ -23,10 +23,10 @@ def main():
     import cProfile
     import pstats
 
-    import bench
+    from mazu_tpu.synth import genome_parts
 
     t0 = time.time()
-    unitigs, refs, u2pos = bench.build_synthetic(bases)
+    unitigs, refs, u2pos = genome_parts(bases)
     t1 = time.time()
     print(f"[synth gen + pack + spt] {t1-t0:.1f}s")
 

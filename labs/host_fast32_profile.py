@@ -1,8 +1,8 @@
 """Profile the fast32 (compact-tier) SSHash build stages at synthetic scale.
 
 Host-only (no jax): python host_fast32_profile.py [n_bases]
-Used to find what dominates Gbp-scale builds (STATUS: 1Gbp fast32 took
-1550s with the MPHF stage dominating) before the 3Gbp human-scale run.
+Used to find what dominates Gbp-scale builds (the MPHF stage, at 1 Gbp)
+before a 3 Gbp human-scale run.
 """
 
 import _bootstrap  # noqa: F401  (repo root on sys.path)
@@ -18,10 +18,10 @@ os.environ.setdefault("MAZU_BUILD_TIMING", "1")
 
 def main():
     nb = int(sys.argv[1]) if len(sys.argv) > 1 else 200_000_000
-    import bench
+    from mazu_tpu.synth import genome_parts
 
     t0 = time.time()
-    unitigs, refs, u2pos = bench.build_synthetic(nb)
+    unitigs, refs, u2pos = genome_parts(nb)
     print(f"synth {nb/1e6:.0f}Mbp: {time.time()-t0:.1f}s", flush=True)
     from mazu_tpu.kphf.sshash import SSHash
 

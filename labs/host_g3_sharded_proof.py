@@ -1,9 +1,8 @@
 """Human-scale (3Gbp) sharded deployment proof, END-TO-END FROM FILES.
 
 The 3Gbp DIRECT-engine index (21.7GB ckpt, 34.5 bits/kmer) does not fit
-one chip's HBM — it is the >HBM tier. This script proves the whole
-deployment flow the round-3 VERDICT asked for (task 7) on the REAL
-artifact, not a toy:
+one device's memory — it is the >HBM tier. This script proves the whole
+sharded deployment flow on the REAL artifact, not a toy:
 
   .ckpts/g3_direct_w19.npz
     -> save_compact_sharded (8 bucket shards on disk)

@@ -1,10 +1,9 @@
 """Host-side Gbp-scale index build + checkpoint (run once, query many).
 
 Builds the synthetic genome + fast32 compact-tier SSHash and saves an
-uncompressed .npz checkpoint that tpu_gbp_r3.py can load with
-MAZU_GBP_CKPT=<path> — the Gbp build costs ~25-90 min on this host (worse
-when the VM's fresh-page fault pathology is active, see STATUS round 3),
-so it must not be repeated per TPU session.
+uncompressed .npz checkpoint that ``mazu_tpu.io.checkpoint.load_index``
+reads back — a Gbp build takes tens of minutes, so it is built once and
+queried many times.
 
 Usage: MALLOC_MMAP_MAX_=0 MALLOC_TRIM_THRESHOLD_=-1 \
        python host_gbp_build.py <n_bases> <out.npz> [skew]
@@ -25,13 +24,13 @@ def main():
     out = sys.argv[2]
     skew = int(sys.argv[3]) if len(sys.argv) > 3 else 64
 
-    import bench
+    from mazu_tpu.synth import genome_parts
     from mazu_tpu.index.modindex import ModIndex
     from mazu_tpu.io.checkpoint import save_index
     from mazu_tpu.kphf.sshash import SSHash
 
     t0 = time.time()
-    unitigs, refs, u2pos = bench.build_synthetic(nb)
+    unitigs, refs, u2pos = genome_parts(nb)
     print(f"synth {nb/1e9:.2f}Gbp in {time.time()-t0:.0f}s", flush=True)
     t0 = time.time()
     engine = os.environ.get("MAZU_GBP_ENGINE", "fast32")

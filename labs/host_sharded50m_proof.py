@@ -1,4 +1,4 @@
-""">HBM sharded deployment proof at 50Mbp (VERDICT #5 done-criterion).
+""">HBM sharded deployment proof at 50Mbp.
 
 Builds the 50Mbp synthetic mono2 L=0.25 index (7.67GB of device arrays —
 OOMs a single bench chip), writes a 4-shard mono checkpoint, loads it onto
@@ -33,7 +33,7 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    import bench
+    from mazu_tpu.synth import genome_parts
     from mazu_tpu.index.modindex import ModIndex
     from mazu_tpu.index.validate import merge_sharded_out
     from mazu_tpu.io.sharded_ckpt import (
@@ -45,7 +45,7 @@ def main():
     from mazu_tpu import MATCH_IDENTITY, MATCH_TWIN
 
     t0 = time.time()
-    unitigs, refs, u2pos = bench.build_synthetic(50_000_000)
+    unitigs, refs, u2pos = genome_parts(50_000_000)
     log(f"synthetic 50Mbp: {unitigs.n_kmers} kmers ({time.time()-t0:.0f}s)")
 
     t0 = time.time()

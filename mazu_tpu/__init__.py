@@ -1,10 +1,10 @@
-"""mazu_tpu — a TPU-native, modular k-mer index engine.
+"""mazu_tpu — a modular, batched k-mer index engine in JAX.
 
-A from-scratch re-design of the capabilities of COMBINE-lab/mazu
-(`/root/reference`) for TPU hardware: all index structures live as flat,
-HBM-resident device arrays; queries are batched and fully vectorized in
-JAX/XLA (with Pallas kernels on the hot path); builders run host-side in
-NumPy (optionally accelerated by the native C++ helpers in
+A from-scratch re-design of the capabilities of COMBINE-lab/mazu for an
+accelerator: all index structures live as flat device-resident arrays;
+queries are batched and fully vectorized in JAX/XLA (with a Pallas kernel
+for the mono2 probe on the GPU); builders run host-side in NumPy
+(optionally accelerated by the native C++ helpers in
 ``mazu_tpu.io.native``).
 
 Layer map (mirrors reference SURVEY.md §1, re-designed arrays-first):
@@ -24,8 +24,8 @@ Layer map (mirrors reference SURVEY.md §1, re-designed arrays-first):
   minimizer-bucket-sharded queries over a jax Mesh).
 
 Dtype policy: k-mer words are uint64 (k <= 31 -> 62 bits). 64-bit mode is
-enabled at import; TPU emulates 64-bit integer ops on 32-bit lanes, and the
-Pallas kernels use explicit 2x32-bit arithmetic where it matters.
+enabled at import; the hot query paths keep most arithmetic in 32-bit lanes
+(u32 hash chains, 2x32-bit key halves).
 """
 
 import jax

@@ -1,6 +1,6 @@
 """Succinct bit-level primitives (L0/L1 of the reference layer map).
 
-TPU re-design of the behavior mazu gets from the external ``simple-sds``
+Arrays-first re-design of the behavior mazu gets from the external ``simple-sds``
 crate (BitVector rank/select, IntVector, RawVector) and of the in-tree
 Elias-Fano vector (reference src/elias_fano.rs).
 

@@ -52,7 +52,7 @@ def _build_parser():
                 choices=["parity", "fast32", "direct", "cuckoo", "mono", "mono2"],
                 default="parity",
                 help=(
-                    "query arithmetic engine (direct/fast32 = TPU-native; "
+                    "query arithmetic engine (direct/fast32 = 32-bit hash chains; "
                     "mono/mono2 = single-gather flagship)"
                 ),
             )
@@ -156,6 +156,9 @@ def main(argv=None):
 
 def _main(argv=None):
     args = _build_parser().parse_args(argv)
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(levelname)s %(name)s: %(message)s",
@@ -312,7 +315,7 @@ def _main(argv=None):
 
             if args.streaming and args.device:
                 # flat cache mode: one jitted graph (cold kernel + derived
-                # warm flags), the TPU reads path
+                # warm flags), the device reads path
                 from .index.streaming import StreamingIndex, kmerize_reads
 
                 si = StreamingIndex(k2u, mode="flat")

@@ -10,8 +10,7 @@ Two families:
 2. ``mix64`` (in mazu_tpu.kmer) — the default minimizer-ordering hash for
    self-built SSHash indexes.
 
-All functions are elementwise uint64 and run under NumPy or jax.numpy
-(including on TPU, where XLA emulates 64-bit integer lanes).
+All functions are elementwise uint64 and run under NumPy or jax.numpy.
 """
 
 from __future__ import annotations

@@ -71,11 +71,8 @@ def build_useqrec(u2pos, unitigs) -> np.ndarray:
     candidate window AND everything the query tail needs for the unitig
     containing base 32i: the extent check (== the boundary-bv validity
     predicate, see probe_body_generic), the unitig id (no rank), and the
-    projection record (no offsets/ctable gathers). Measured round 4: the
-    TPU query is bound by GATHER-OP COUNT (each ~20 ns at issue rate,
-    adjacency irrelevant; the extraction ALU is free — see
-    labs/tpu_usrec_attr.py), so folding the second window word and the
-    record into one row is the whole game. A candidate whose k-mer sits
+    projection record (no offsets/ctable gathers): the second window word
+    and the record ride one row gather. A candidate whose k-mer sits
     past a unitig boundary relative to the row's unitig (or whose window
     spans one) fails the inline extent check, is flagged unresolved, and
     resolves in the caller's validating phase 2 — exactness unchanged.
@@ -206,7 +203,7 @@ def _scatter_set(base, idx, upd, xp):
 def _merge_compact(d, p, r, pieces, N, max_occs, xp):
     """Merge main-phase fused results with one or more compacted phase-2
     blocks into full-width padded tensors (test/oracle path; serving
-    consumers use merge=False — wide scatters cost per ELEMENT on TPU)."""
+    consumers use merge=False and skip the wide row scatters)."""
     main_w = p["ref_id"].shape[1]
     target_w = max(max_occs, main_w)
     pad2 = [(0, 0), (0, target_w - main_w)]
@@ -244,8 +241,8 @@ def _compact_split(
     and pay ONLY the wide occurrence fetch; type-B lanes (skew bucket or
     probe depth exceeded) re-run the full padded pipeline, starting at
     ``probe_start`` (exact: type-B non-skew lanes already probed and
-    missed rows [0, probe_start) in the shallow main phase). One
-    2-channel MXU scan ranks both lane sets.
+    missed rows [0, probe_start) in the shallow main phase). Two
+    rank-selects (ops/compact.py) extract both lane sets.
 
     ``probe_limit2`` (sshash only) inserts a MIDDLE phase: the compacted
     type-B lanes first re-probe shallowly to depth ``probe_limit2`` with
@@ -423,9 +420,9 @@ def get_ref_pos_compact(
     Main phase: fused-row k2u main path (no skew-structure gathers) +
     zero-gather projection for single-occurrence unitigs — the common case
     costs 3 row gathers total. Heavy lanes (skew bucket or multi-occurrence
-    unitig) are compacted on device — scatter-free: MXU prefix-sum rank +
-    searchsorted lane extraction (ops/compact.py; XLA TPU scatter costs
-    ~75 ns/update and would dominate) — into an M-lane sub-batch resolved
+    unitig) are compacted on device — scatter-free: a hierarchical
+    rank-select extracts the lane indices (ops/compact.py) — into an M-lane
+    sub-batch resolved
     by the full padded pipeline, then merged back. Results are exactly
     get_ref_pos_padded's unless ``over_budget`` is set (caller falls back;
     cannot happen when M covers the workload's overflow rate).
@@ -438,7 +435,7 @@ def get_ref_pos_compact(
     need the wide occurrence fetch via the fused occ_start. Only
     skew-bucket / probe-depth-unresolved lanes (type B, capacity ``m2b``)
     re-run the full padded pipeline. Results identical; ~2x cheaper type-A
-    lanes, one 2-channel MXU scan for both compactions.
+    lanes.
 
     Works with BOTH array layouts:
     - fused inline rows (``ModIndex.device_arrays(fused=True)``): the
@@ -472,75 +469,20 @@ def get_ref_pos_compact(
     M = int(m2) if m2 else max(64, N // budget_div)
     probe_start = 0
     if d["k2u"]["meta"].kind == "kcdict":
-        import os
-
         from ..kphf.kcdict import kcdict_k2u
+        from ..ops.mono2_probe import mono2_probe_k2u, use_mono2_probe
 
-        m_ = d["k2u"]["meta"]
-        use_pallas = os.environ.get("MAZU_PALLAS_QUERY", "0") != "0"
-        if (
-            use_pallas
-            and xp is not np
-            and getattr(m_, "scheme", "") == "mono2"
-            and getattr(m_, "occ32", False)
-        ):
-            # one-command switch to the DMA-ring probe kernel (requires a
-            # Mosaic-capable backend; MAZU_PALLAS_QUERY=interpret for the
-            # TPU interpreter) — see mazu_tpu/ops/pallas_query.py
-            from ..ops.pallas_query import pallas_mono2_k2u
+        import jax
 
-            r = pallas_mono2_k2u(
-                d["k2u"], fw,
-                interpret=os.environ["MAZU_PALLAS_QUERY"] == "interpret",
-            )
+        if use_mono2_probe(d["k2u"]["meta"], xp, jax.default_backend()):
+            r = mono2_probe_k2u(d["k2u"], fw)
         else:
             r = kcdict_k2u(d["k2u"], fw, xp, mode="main")
     else:
-        import os
-
-        m_ = d["k2u"]["meta"]
-        cap_pallas = os.environ.get("MAZU_PALLAS_CAPACITY", "0")
-        if (
-            cap_pallas != "0"
-            and xp is not np
-            and probe_limit is not None
-            and "bpos" in d["k2u"]
-            and "useqrec" in d["k2u"].get("us", {})
-            and getattr(m_, "direct_t", 0)
-        ):
-            # round 5: DMA-ring kernel for the COMMITTED capacity config
-            # (bpos bucket-inline + useqrec records — 1+plim DMAs/query)
-            from ..ops.pallas_capacity import pallas_bpos_usrec_k2u
-
-            r = pallas_bpos_usrec_k2u(
-                d["k2u"], fw, probe_limit,
-                interpret=cap_pallas == "interpret",
-            )
-        elif (
-            cap_pallas != "0"
-            and xp is not np
-            and probe_limit is not None
-            and defer_valid
-            and getattr(m_, "prefix_kind", "") == "grouped16"
-            and getattr(m_, "pos_kind", "") == "packed"
-            and "words2" in d["k2u"].get("us", {}).get("useq", {})
-            and "wb2" in d["k2u"]["us"]["bv"]
-        ):
-            # one-command switch to the capacity-tier DMA-ring probe
-            # kernel (Mosaic backend; =interpret for the TPU interpreter)
-            # — see mazu_tpu/ops/pallas_capacity.py
-            from ..ops.pallas_capacity import pallas_capacity_k2u
-
-            r = pallas_capacity_k2u(
-                d["k2u"], fw, probe_limit,
-                interpret=cap_pallas == "interpret",
-                mphf_level_limit=mphf_level_limit,
-            )
-        else:
-            r = sshash_k2u(
-                d["k2u"], fw, xp, mode="main", probe_limit=probe_limit,
-                defer_valid=defer_valid, mphf_level_limit=mphf_level_limit,
-            )
+        r = sshash_k2u(
+            d["k2u"], fw, xp, mode="main", probe_limit=probe_limit,
+            defer_valid=defer_valid, mphf_level_limit=mphf_level_limit,
+        )
         if (
             probe_limit is not None
             and not defer_valid
@@ -585,8 +527,7 @@ def get_ref_pos_compact(
         # zero-scatter form: main (exact for non-overflow lanes) + the
         # compacted phase-2 block with its lane map — the serving/bench
         # path reduces or consumes both pieces without materializing
-        # [N, max_occs] merged tensors (wide row scatters cost per
-        # ELEMENT on TPU and would dominate the whole query)
+        # [N, max_occs] merged tensors (no wide row scatters)
         return {
             "main": {**{kk: r[kk] for kk in ("unitig_id", "unitig_len", "pos", "mt")}, **p},
             "overflow": overflow,
@@ -623,9 +564,7 @@ def get_ref_pos_csr(d: dict, fw_words, xp, budget: int):
     uid = xp.where(hit, r["unitig_id"], xp.zeros_like(r["unitig_id"]))
     start = u2["offsets"][uid]
     cnt = xp.where(hit, u2["offsets"][uid + 1] - start, xp.zeros_like(start))
-    from ..ops.scan import prefix_sum
-
-    occ_start = prefix_sum(cnt.astype(xp.int32), xp, inclusive=False).astype(cnt.dtype)
+    occ_start = xp.cumsum(cnt) - cnt  # exclusive
     total = occ_start[-1] + cnt[-1] if cnt.shape[0] else xp.int64(0)
 
     # flat slot j belongs to query qid[j] = searchsorted(occ_start, j, 'right')-1

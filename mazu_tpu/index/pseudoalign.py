@@ -7,7 +7,7 @@ reported so callers can threshold). This is the core operation of
 transcript quantification front-ends; the reference reserves the color
 layer (src/lib.rs:26) but implements neither it nor this.
 
-TPU formulation: color sets are BITSET rows (u64[n_classes, W],
+Device formulation: color sets are BITSET rows (u64[n_classes, W],
 W = ceil(n_refs/64)) — one wide row gather per hitting k-mer, then a
 bitwise-AND reduction along the read (miss lanes contribute the neutral
 all-ones row). The whole read batch is ONE fused graph reusing the flat

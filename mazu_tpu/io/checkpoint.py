@@ -3,8 +3,8 @@
 The reference serializes indexes to single files with bincode
 (src/bin/index/main.rs:103-124, .piscem/.pf_dense/.sshash/.pfhash). Here an
 index is a tree of flat arrays + static metadata, saved as one compressed
-``.npz`` container with ``/``-separated keys (TPU-native equivalent: the
-file maps 1:1 onto the device pytree).
+``.npz`` container with ``/``-separated keys (the file maps 1:1 onto the
+device pytree).
 """
 
 from __future__ import annotations

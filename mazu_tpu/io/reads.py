@@ -1,8 +1,8 @@
 """Packed read ingestion + device-side k-merization.
 
 The reference k-merizes reads on the host (CanonicalKmerIterator over ASCII,
-src/index/validate.rs:57, src/bin/kphf/main.rs:303). On TPU the honest
-serving cost includes getting read k-mers ONTO the chip: expanding each
+src/index/validate.rs:57, src/bin/kphf/main.rs:303). On an accelerator the
+honest serving cost includes getting read k-mers ONTO the device: expanding each
 k-mer to a u64 word costs 8 bytes/k-mer of host->device traffic, ~26x the
 information content of the read itself (2 bits/base). This module ships the
 bases, not the words:
@@ -12,8 +12,8 @@ bases, not the words:
   optional 1-bit/base "bad" mask for non-ACGT positions (rare; omitted
   entirely when absent) and a per-read length vector.
 - device: ``kmerize_device`` reconstructs the [R, L] k-mer-word matrix with
-  2 consecutive-word gathers per k-mer (nearly free vs random gathers —
-  measured facts in STATUS.md) and derives the validity mask
+  2 consecutive-word gathers per k-mer (nearly free vs random gathers)
+  and derives the validity mask
   (in-read-bounds AND no bad base in the k-window, the reference's
   non-ACGT-restart semantics) with 2 more consecutive gathers when a bad
   mask exists.
@@ -83,7 +83,7 @@ def pack_fastq(path: str, k: int) -> dict:
     The serving hot path: the reference k-merizes reads on the host per
     record (src/bin/kphf/main.rs:303); here parse+pack were the two
     dominant host stages of the serve pipeline (98+269 ms vs 46 ms upload
-    per 16K-read pass, STATUS round 3). The native path decompresses once,
+    per 16K-read pass). The native path decompresses once,
     then C scans the text twice (size, fill) writing the stride-aligned
     2-bit words directly — no per-read Python objects. Falls back to
     read_fastq + pack_reads (bit-identical output, tested) when the

@@ -162,7 +162,7 @@ def mix64(x, seed=U64(0)):
     Default minimizer ordering hash. This replaces the reference's seeded
     wyhash (reference src/kphf/mod.rs:32-52) — the choice of ordering hash
     only affects which w-mer is the minimizer, never query results, and this
-    mix uses only mul-lo/xor/shift, which maps cleanly onto TPU integer
+    mix uses only mul-lo/xor/shift, which maps cleanly onto vector integer
     lanes. A wyhash-v1 ordering (mazu_tpu.hashes.wyhash_u64, reconstructed —
     see its provenance note) is selectable via ``ordering="wyhash"`` /
     ``SSHash.from_unitig_set(minimizer_hash="wyhash")`` for parity

@@ -1,7 +1,7 @@
-"""BooPHF32: a TPU-native BBHash variant with 32-bit arithmetic.
+"""BooPHF32: a BBHash variant with 32-bit arithmetic.
 
 Same minimal-perfect-hash scheme as BooPHF (levels of singleton bitmaps +
-final hash), re-designed for TPU integer lanes:
+final hash), re-designed for 32-bit vector integer lanes:
 
 - level sizes are powers of two -> position = hash & mask (no 64-bit
   Lemire mulhi)
@@ -200,15 +200,15 @@ class BooPHF32:
             "fh_vals": fh_vals,
         }
         if mrows:
-            # paired word|rank rows (round 4: the TPU wall is per gather
-            # OP): mrows[i] = level word i | (GLOBAL cumulative popcount
+            # paired word|rank rows (one gather per level test):
+            # mrows[i] = level word i | (GLOBAL cumulative popcount
             # below word i) << 32 — the stored values are rank-offset
             # across levels (level padding words are zero, so the straight
             # cumsum over the concatenated padded words IS the global
             # offset). The level bit-test gather then carries the whole
             # rank, collapsing the 9-op block-rank tail (1 ranks + 7 loop
             # words + 1 masked word) to ZERO post-loop gathers. OPT-IN
-            # (ADVICE r4): the u64 rows are 2x the words array — HBM-tight
+            #: the u64 rows are 2x the words array — HBM-tight
             # placements and native-host consumers keep the lean layout.
             # words+ranks are dropped: the mrows lookup never reads them.
             pc = np.bitwise_count(words.astype(np.uint32)).astype(np.uint64)

@@ -1,9 +1,9 @@
 """KCDict: cuckoo-addressed canonical k-mer dictionary (speed-king K2U).
 
-A TPU-native alternative to SSHash/PFHash (same K2U contract as reference
-src/kphf/mod.rs:58-66) built for the measured cost model of XLA gathers:
-only random-base gather ISSUES cost (~10-14 ns each); consecutive bytes are
-nearly free; scatters and multi-structure probes are poison.
+An alternative to SSHash/PFHash (same K2U contract as reference
+src/kphf/mod.rs:58-66) built for a gather cost model: a random row fetch
+costs, the consecutive bytes of that row are nearly free, and
+multi-structure probes multiply the fetches.
 
 Design: two-choice cuckoo table of buckets with S=2 slots. Each slot
 stores the canonical k-mer itself plus everything the full query needs.
@@ -25,7 +25,7 @@ guarantees every key is in one of its two buckets. Single-occurrence
 unitigs (occ_word/occ_cnt ride the slot) project with zero extra gathers.
 
 Space: ~(64/S loaded) bytes per k-mer — a deliberate speed-for-space trade
-(the parity engines keep ~9 bits/k-mer; see STATUS.md trade-off table).
+(the parity engines keep ~9 bits/k-mer).
 """
 
 from __future__ import annotations

@@ -75,9 +75,7 @@ def sshash_k2u_reads_runshare(d: dict, fw_words, new_read, xp, budget_div: int =
     # ---- run segmentation (bucket-level sharing)
     prev_hc = xp.concatenate([hc[:1] - 1, hc[:-1]])
     run_start = xp.asarray(new_read) | (hc != prev_hc)
-    from ..ops.scan import prefix_sum
-
-    run_id = prefix_sum(run_start.astype(xp.int32), xp, max_value=1) - 1  # int32[N]
+    run_id = xp.cumsum(run_start.astype(xp.int32), dtype=xp.int32) - 1  # int32[N]
     n_runs = run_id[-1] + 1
     run_overflow = n_runs > M
     rid = xp.clip(run_id, 0, M - 1)

@@ -1,6 +1,6 @@
 """SSHash: minimizer-bucketed k-mer dictionary (the flagship K2U).
 
-Re-design of reference src/kphf/sshash.rs for batched TPU querying. Same
+Re-design of reference src/kphf/sshash.rs for batched device querying. Same
 scheme, carried over deviations included (reference src/kphf/sshash.rs:32-37):
 
 - minimizer of the canonical k-mer: ``mini(g*) = mini(min(g, g'))``
@@ -38,13 +38,13 @@ U64 = np.uint64
 
 def mphf_lookup(d: dict, keys, xp, level_limit: int | None = None):
     """Dispatch on the MPHF implementation (64-bit C++-parity BooPHF or the
-    TPU-native 32-bit BooPHF32).
+    32-bit BooPHF32).
 
     ``level_limit`` (BooPHF32 only): truncated lookup — returns
     ``(res, unresolved)``; see boophf32_lookup. On the 64-bit parity
     BooPHF the chain always runs full and ``unresolved`` is all-False
     (its level count is data-defined and small; the searchsorted-free
-    speed path only matters on the TPU-native engines)."""
+    speed path only matters on the 32-bit engines)."""
     if isinstance(d["meta"], BooPHF32Meta):
         return boophf32_lookup(d, keys, xp, level_limit=level_limit)
     res = boophf_lookup(d, keys, xp)
@@ -95,7 +95,7 @@ class SSHash:
         self.skew_mphf = skew_mphf
         self.skew_pos = skew_pos
         self.seed = int(seed)
-        self.hash32 = bool(hash32)  # mix32 minimizer ordering (TPU fast path)
+        self.hash32 = bool(hash32)  # mix32 minimizer ordering (32-bit fast path)
         # minimizer-ordering hash: "mix64" (default), "mix32" (fast32/direct
         # engines), or "wyhash" (reference-parity option, see hashes.wyhash_u64)
         self.ordering = ordering or ("mix32" if hash32 else "mix64")
@@ -230,14 +230,14 @@ class SSHash:
         seed: int = 0,
         gamma: float = 1.7,
         chunk: int = 1 << 20,
-        engine: str = "parity",  # "parity" | "fast32" | "direct" (TPU-native)
+        engine: str = "parity",  # "parity" | "fast32" | "direct" (32-bit engines)
         bucket_load: float = 0.5,  # direct engine: minimizers per bucket-table slot
         skew_bound_target: int = 4,  # direct engine: max skew-bucket probe count
         minimizer_hash: str | None = None,  # parity engine: "mix64" | "wyhash"
     ) -> "SSHash":
         """Host-side build (reference src/kphf/sshash.rs:86-330, vectorized).
 
-        ``engine="fast32"`` selects the TPU-native arithmetic: BooPHF32
+        ``engine="fast32"`` selects the 32-bit arithmetic: BooPHF32
         MPHFs (u32 chain hashes, power-of-two levels) and mix32 minimizer
         ordering — same structure and guarantees, ~all-32-bit query math.
 
@@ -376,7 +376,7 @@ class SSHash:
     def _from_unitig_set_direct(
         cls, unitigs, w, skew_param, seed, chunk, bucket_load=0.5, skew_bound_target=4
     ):
-        """engine="direct": TPU-native bucket table instead of an MPHF.
+        """engine="direct": a hashed bucket table instead of an MPHF.
 
         The minimizer -> bucket map is ``fold_hash32(mm) & (T-1)`` with T a
         power of two (~n_minimizers / bucket_load entries). Colliding
@@ -696,9 +696,7 @@ class SSHash:
           table = (pos0, pos1, pos2, count) per bucket — the MAIN-phase
           shallow probe (probe_limit <= 3) then reads bucket bounds AND
           its candidate positions in ONE gather instead of the 4-6
-          prefix/pos-window gathers (round 4: the query is bound by
-          gather-OP count, ~20 ns each — labs/tpu_usrec_attr.py). 16
-          B/bucket on top of the packed arrays (which phases 2/2B still
+          prefix/pos-window gathers. 16 B/bucket on top of the packed arrays (which phases 2/2B still
           use) — the <=1 Gbp speed-at-capacity knob. Requires
           total_len < 2^31.
         """
@@ -738,7 +736,7 @@ class SSHash:
         if self.mphf is not None:
             # mphf_rows: opt-in paired word|rank mrows layout (BooPHF32
             # only) — truncated lookups become level_limit gather OPS with
-            # no rank tail, at 2x the bit-array bytes (gated per ADVICE r4)
+            # no rank tail, at 2x the bit-array bytes (opt-in)
             if mphf_rows and isinstance(self.mphf, BooPHF32):
                 d["mphf"] = self.mphf.device_arrays(mrows=True)
             else:
@@ -1000,7 +998,7 @@ class SSHash:
             )
             # the bpos main probe reads candidate positions from the bpos
             # row; fixedcap layouts address occurrence rows directly and
-            # would NameError in sshash_k2u (ADVICE r4) — only the packed
+            # would NameError in sshash_k2u — only the packed
             # pos layout composes with bucket_inline
             assert pos_kind == "packed", (
                 f"bucket_inline requires pos_kind='packed', got {pos_kind!r}"
@@ -1484,10 +1482,8 @@ def sshash_k2u(
         window plus the containing unitig's extent, id, and projection
         record — the extent check (== the boundary-bv validity
         predicate), the rank, and the whole projection tail ride the
-        probe gather; zero post-loop gathers for in-unitig hits. The TPU
-        query is bound by gather-OP count (~20 ns each at issue rate,
-        adjacency irrelevant, extraction ALU free — STATUS round 4), so
-        one row per iteration is the design point.
+        probe gather; zero post-loop gathers for in-unitig hits: one row
+        per iteration is the design point.
 
         A candidate whose k-mer word matches but whose position fails
         the row's extent check (its window spans a unitig boundary, or

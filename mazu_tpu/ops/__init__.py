@@ -1,1 +1,1 @@
-from .scan import prefix_sum  # noqa: F401
+"""Device primitives: scatter-free lane compaction and the mono2 probe kernel."""

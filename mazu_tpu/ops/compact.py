@@ -1,12 +1,11 @@
 """Scatter-free lane compaction.
 
-XLA TPU scatter costs ~75 ns/update (serial lowering, measured round 1) —
-compacting flagged lanes by cumsum+scatter pays N updates and dominates
-everything. And the round-1 replacement (MXU-scan rank + searchsorted)
-still paid ~20 element gathers PER EXTRACTED LANE (binary search over the
-[N] rank array: measured 6.3 ms for M=32K on TPU — 200 ns/lane).
+Compacting flagged lanes by cumsum+scatter pays N scatter updates, and a
+prefix-sum rank + searchsorted select (``flagged_lanes_ss``) pays a
+binary search over the [N] rank array — ~20 dependent element gathers —
+PER EXTRACTED LANE.
 
-This module now computes the first-M flagged lane indices as an on-the-fly
+This module computes the first-M flagged lane indices as an on-the-fly
 HIERARCHICAL RANK-SELECT structure — the same select_1 design as
 bits/bitvector.py, built per batch in registers:
 
@@ -136,13 +135,12 @@ def flagged_lanes2(flags_a, flags_b, m_a: int, m_b: int, xp):
 
 
 def flagged_lanes_ss(flags, m: int, xp):
-    """Round-1 algorithm (MXU-scan rank + searchsorted select), kept for
-    A/B measurement: ~20 element gathers per extracted lane on TPU."""
+    """Prefix-sum rank + searchsorted select: the plain form of
+    ``flagged_lanes``, kept as its cross-check (a binary search over the
+    [N] rank array per extracted lane)."""
     n = flags.shape[0]
     fi = flags.astype(xp.int32)
-    from .scan import prefix_sum
-
-    rank = prefix_sum(fi, xp, max_value=1)  # inclusive; rank[-1] = n_set
+    rank = xp.cumsum(fi, dtype=xp.int32)  # inclusive; rank[-1] = n_set
     n_set = rank[-1].astype(xp.int64) if n else xp.int64(0)
     targets = xp.arange(1, m + 1, dtype=rank.dtype)
     lanes = xp.searchsorted(rank, targets, side="left")

@@ -1,7 +1,7 @@
 """Multi-chip sharding of index queries.
 
-The reference is a single-process rayon library (SURVEY.md §2 note); the
-TPU build's distribution model comes from BASELINE.json:
+The reference is a single-process rayon library (SURVEY.md §2 note); this
+build's distribution model:
 
 1. **Replicated index, data-parallel queries** (small references): the
    index pytree is replicated on every chip; the query batch is sharded on
@@ -917,8 +917,8 @@ def shard_compact_arrays(
     shard so bit offsets start at 0), and the u2pos ctable2 pair rows.
     Returns (shared, stacked) like shard_fused_arrays.
 
-    Round-5 gather-op-diet options (the committed 8.1M single-chip
-    config, STATUS r4, made deployable past one chip):
+    Capacity-layout options (the single-device bpos + useqrec config,
+    made deployable past one device):
 
     - ``bucket_inline``: also shard the direct-addressed ``bpos``
       u32[T, 4] table by the same bucket ranges — the sharded MAIN

@@ -1,6 +1,6 @@
 """Profiling / timing helpers (SURVEY §5: the reference only has ad-hoc
-Instant timing in its CLIs; the TPU equivalents are jax profiler traces and
-ns-per-query reporting with robust device synchronization)."""
+Instant timing in its CLIs; the device equivalents are jax profiler traces
+and ns-per-query reporting with robust device synchronization)."""
 
 from __future__ import annotations
 

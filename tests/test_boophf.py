@@ -182,7 +182,7 @@ class TestBooPHF32MrowsParity:
         rng = np.random.default_rng(5)
         keys = np.unique(rng.integers(0, 1 << 62, 60000, dtype=np.uint64))
         ph = BooPHF32.build(keys)
-        d = ph.device_arrays(mrows=True)  # opt-in layout (ADVICE r4)
+        d = ph.device_arrays(mrows=True)  # opt-in layout
         assert "mrows" in d and "words" not in d  # lean: words/ranks dropped
         legacy = ph.device_arrays()
         assert "mrows" not in legacy and "words" in legacy

@@ -97,12 +97,13 @@ def test_cli_direct_engine():
     os.unlink(out)
 
 
-def test_read_mapper_and_cli_map():
+def test_read_mapper_and_cli_map(monkeypatch):
     if not os.path.exists(TINY + ".cf_seg"):
         pytest.skip("fixture missing")
     from mazu_tpu.cli import main
     from mazu_tpu.index.mapping import ReadMapper
 
+    monkeypatch.setenv("MAZU_HBM_BUDGET", "8e9")  # the CPU reports no limit
     idx = piscem_index_from_cf_prefix(TINY, w=3, skew_param=2, engine="direct")
     mapper = ReadMapper(idx)
     results = mapper.map_fasta(TINY_FA)
@@ -123,12 +124,51 @@ def test_read_mapper_and_cli_map():
     os.unlink(out)
 
 
+def _seeded_index(engine):
+    """32 seeded unitigs with planted minimizer buckets and
+    three-occurrence unitigs (mazu_tpu.synth.toy_spt), w=5."""
+    from mazu_tpu.index.piscem_index import piscem_index_from_spt
+    from mazu_tpu.synth import toy_spt
+
+    return piscem_index_from_spt(toy_spt(w=5, seed=1)[0], 5, 64, engine=engine)
+
+
+@pytest.mark.parametrize("engine", ["direct", "mono2"])
+def test_cli_map_seeded(tmp_path, monkeypatch, capsys, engine):
+    """`index map` on a saved seeded index (the SSHash speed tier serves
+    through TwoPhaseIndexQuery, mono2 through CompactQuery): every k-mer of
+    reads cut from the unitigs hits. The CPU
+    reports no memory limit, so the SSHash budget comes from
+    MAZU_HBM_BUDGET, and without it the tuner refuses."""
+    from mazu_tpu.cli import main
+    from mazu_tpu.kmer import codes_to_seq
+
+    idx = _seeded_index(engine)
+    p = str(tmp_path / "idx.npz")
+    save_index(idx, p)
+    us = idx.k2u.unitigs
+    fa = tmp_path / "reads.fa"
+    lens = np.diff(us.accum)[:4]
+    with open(fa, "w") as f:
+        for u in range(4):
+            bases = us.useq.get_base(np.arange(int(us.accum[u]), int(us.accum[u + 1])))
+            f.write(f">r{u}\n{codes_to_seq(bases)}\n")
+    n = int((lens - idx.k + 1).sum())
+    monkeypatch.delenv("MAZU_HBM_BUDGET", raising=False)
+    if engine == "direct":  # a KCDict has one layout and needs no budget
+        with pytest.raises(ValueError, match="no memory limit"):
+            main(["index", "map", "-i", p, "-f", str(fa)])
+    monkeypatch.setenv("MAZU_HBM_BUDGET", "8e9")
+    assert main(["index", "map", "-i", p, "-f", str(fa)]) == 0
+    assert f"4 reads, {n} k-mers, {n} hits" in capsys.readouterr().out
+
+
 def test_provenance_metadata_roundtrip(tmp_path):
     """BaseIndex-style provenance (version/type/metadata incl. name hashes)
     survives save/load (parity: reference src/index.rs:221-300)."""
     from mazu_tpu import get_mazu_tpu_version
     from mazu_tpu.index.modindex import index_metadata
-    idx = piscem_index_from_cf_prefix(TINY, 5, engine="direct")
+    idx = _seeded_index("direct")
     idx.metadata = index_metadata(idx.refs)
     assert idx.version == get_mazu_tpu_version()
     p = str(tmp_path / "idx.npz")
@@ -169,7 +209,7 @@ def test_reverse_match_type():
 def test_kcdict_checkpoint_roundtrip():
     from mazu_tpu.index.modindex import get_ref_pos_padded
 
-    idx = piscem_index_from_cf_prefix(TINY, 5, engine="cuckoo")
+    idx = _seeded_index("cuckoo")
     p = _tmp()
     save_index(idx, p)
     back = load_index(p)
@@ -183,8 +223,9 @@ def test_kcdict_checkpoint_roundtrip():
     os.unlink(p)
 
 
-def test_cli_validate_pf1_directory(capsys):
-    """validate-fasta accepts a pufferfish C++ index DIRECTORY directly."""
+def test_cli_validate_pf1_directory(capsys, test_data_dir):
+    """validate-fasta accepts a pufferfish C++ index DIRECTORY directly
+    (byte parity with the C++ serialization: needs the reference's files)."""
     from mazu_tpu.cli import main as cli_main
 
     rc = cli_main(
@@ -192,9 +233,9 @@ def test_cli_validate_pf1_directory(capsys):
             "index",
             "validate-fasta",
             "-i",
-            os.path.join(TEST_DATA, "pf1", "small_txome_index"),
+            os.path.join(test_data_dir, "pf1", "small_txome_index"),
             "-f",
-            os.path.join(TEST_DATA, "pf1", "small_txome.fa"),
+            os.path.join(test_data_dir, "pf1", "small_txome.fa"),
         ]
     )
     assert not rc

@@ -189,7 +189,7 @@ def test_colors_fuzz_random_tilings(trial):
 
 
 def test_colors_over_sharded_query():
-    """SHARDED deployments (STATUS round-3 item): cc arrays replicate;
+    """SHARDED deployments: cc arrays replicate;
     colors_from_k2u over the merged mono-sharded full-query output must
     equal the single-device colors_batch exactly."""
     import jax

@@ -1,17 +1,25 @@
 """get_ref_pos_compact (on-device compacted heavy phase) must equal
 get_ref_pos_padded exactly."""
 
+import functools
+
 import numpy as np
 import pytest
 
 from mazu_tpu.index.modindex import get_ref_pos_compact, get_ref_pos_padded
-from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
+from mazu_tpu.synth import toy_index
 
-from conftest import TEST_DATA
-import os
+TINY, CHR = "tiny", "chr"
 
-TINY = os.path.join(TEST_DATA, "cf", "tiny", "tiny")
-CHR7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
+
+@functools.lru_cache(maxsize=None)
+def _index(fixture=CHR, w=15, engine="direct", skew_param=64):
+    """Seeded indexes (mazu_tpu.synth.toy_spt): random unitigs with a
+    planted heavy minimizer bucket, a mid-depth bucket and
+    three-occurrence unitigs. ``tiny``: 32 unitigs of 200 bases;
+    ``chr``: 256 unitigs of 500 bases."""
+    size = dict(seed=1) if fixture == TINY else dict(n_seqs=256, seq_len=500)
+    return toy_index(w=w, engine=engine, skew_param=skew_param, **size)
 
 
 def _workload(index, n=4096, seed=0):
@@ -32,12 +40,12 @@ def _workload(index, n=4096, seed=0):
     return work
 
 
-@pytest.mark.parametrize("prefix,w,bdiv", [(TINY, 5, 1), (CHR7, 15, 4)])
-def test_compact_equals_padded(prefix, w, bdiv):
+@pytest.mark.parametrize("fixture,w,bdiv", [(TINY, 5, 1), (CHR, 15, 4)])
+def test_compact_equals_padded(fixture, w, bdiv):
     import jax
     import jax.numpy as jnp
 
-    index = piscem_index_from_cf_prefix(prefix, w, engine="direct")
+    index = _index(fixture, w)
     arrays = jax.device_put(index.device_arrays(fused=True))
     mo = max(1, index.max_occs())
     work = _workload(index, 4096)
@@ -57,7 +65,7 @@ def test_compact_equals_padded(prefix, w, bdiv):
 def test_compact_over_budget_flag():
     import jax.numpy as jnp
 
-    index = piscem_index_from_cf_prefix(TINY, 5, engine="direct")
+    index = _index(TINY, 5)
     arrays = index.device_arrays(fused=True)
     mo = max(1, index.max_occs())
     work = _workload(index, 256)
@@ -79,7 +87,7 @@ def test_merge_compact_k2u_matches_padded():
 
     from mazu_tpu.index.modindex import merge_compact_k2u
 
-    index = piscem_index_from_cf_prefix(CHR7, 15, engine="direct")
+    index = _index()
     arrays = index.device_arrays(fused=True)
     mo = max(1, index.max_occs())
     work = _workload(index, 2048)
@@ -97,7 +105,7 @@ def test_merge_compact_k2u_matches_padded():
 
 def test_compact_merge_false_checksum():
     """Split (zero-scatter) form must reproduce the padded checksum."""
-    index = piscem_index_from_cf_prefix(CHR7, 15, engine="direct")
+    index = _index()
     arrays = index.device_arrays(fused=True)
     mo = max(1, index.max_occs())
     work = _workload(index, 2048)
@@ -128,7 +136,7 @@ def test_compact_merge_false_checksum():
 @pytest.mark.parametrize("plim", [1, 2])
 def test_compact_probe_limit(plim):
     """Shallow main probe + overflow pass must stay exact."""
-    index = piscem_index_from_cf_prefix(CHR7, 15, engine="direct")
+    index = _index()
     arrays = index.device_arrays(fused=True)
     mo = max(1, index.max_occs())
     work = _workload(index, 2048, seed=3)
@@ -151,7 +159,7 @@ def test_inline2_layout_equals_inline():
 
     from mazu_tpu.index.twophase import TwoPhaseIndexQuery
 
-    index = piscem_index_from_cf_prefix(CHR7, 15, engine="direct")
+    index = _index()
     work = _workload(index, 4096, seed=11)
     mo = max(1, index.max_occs())
     a = get_ref_pos_padded(index.device_arrays(fused=True), work, np, mo)
@@ -251,10 +259,9 @@ class TestOneGraphDriver:
         import jax.numpy as jnp
 
         from mazu_tpu.index.pipeline import OneGraphIndexQuery
-        from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
         from mazu_tpu.kmer import revcomp
 
-        idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct", skew_param=4)
+        idx = _index(skew_param=4)
         us = idx.k2u.unitigs
         kms = us.get_kmer_u64(us.kmer_start_positions())
         rng = np.random.default_rng(11)
@@ -281,10 +288,9 @@ class TestOneGraphDriver:
         import jax.numpy as jnp
 
         from mazu_tpu.index.pipeline import OneGraphIndexQuery
-        from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
         from mazu_tpu.kmer import revcomp
 
-        idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct", skew_param=4)
+        idx = _index(skew_param=4)
         us = idx.k2u.unitigs
         kms = us.get_kmer_u64(us.kmer_start_positions())
         rng = np.random.default_rng(41)
@@ -302,10 +308,9 @@ class TestOneGraphDriver:
         assert got == CH * og.checksum_host(work[None, :])
 
     def test_compact_inline2_equals_padded(self):
-        from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
         from mazu_tpu.kmer import revcomp
 
-        idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct", skew_param=4)
+        idx = _index(skew_param=4)
         us = idx.k2u.unitigs
         kms = us.get_kmer_u64(us.kmer_start_positions())
         rng = np.random.default_rng(12)
@@ -334,10 +339,9 @@ def test_fixedcap2_matches_inline2():
     gather) must reproduce the inline2 compact-path output EXACTLY,
     including overflow flags (slot-0 cnt bits give exact n_occs)."""
     from mazu_tpu.index.modindex import get_ref_pos_compact
-    from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
     from mazu_tpu.kmer import revcomp
 
-    idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct", skew_param=4)
+    idx = _index(skew_param=4)
     us = idx.k2u.unitigs
     kms = us.get_kmer_u64(us.kmer_start_positions())
     rng = np.random.default_rng(5)
@@ -383,10 +387,9 @@ def test_fixedcap2_onegraph_device():
     import jax.numpy as jnp
 
     from mazu_tpu.index.pipeline import OneGraphIndexQuery
-    from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
     from mazu_tpu.kmer import revcomp
 
-    idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct", skew_param=4)
+    idx = _index(skew_param=4)
     us = idx.k2u.unitigs
     kms = us.get_kmer_u64(us.kmer_start_positions())
     rng = np.random.default_rng(12)
@@ -436,7 +439,7 @@ class TestCompactSplit:
     def _setup(self, pos_kind="inline2"):
         from mazu_tpu.kmer import revcomp
 
-        idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct", skew_param=4)
+        idx = _index(skew_param=4)
         us = idx.k2u.unitigs
         kms = us.get_kmer_u64(us.kmer_start_positions())
         rng = np.random.default_rng(21)
@@ -510,7 +513,7 @@ class TestCompactTierNonFused:
     ):
         from mazu_tpu.kmer import revcomp
 
-        idx = piscem_index_from_cf_prefix(CHR7, 15, engine=engine, skew_param=skew)
+        idx = _index(engine=engine, skew_param=skew)
         us = idx.k2u.unitigs
         kms = us.get_kmer_u64(us.kmer_start_positions())
         rng = np.random.default_rng(seed)
@@ -1057,13 +1060,9 @@ def test_mphf_rows_layout_parity():
     """mphf_rows=True (paired word|rank mrows, round-5 opt-in) must answer
     identically to the legacy block-rank layout through the full sshash
     pipeline, truncated and full."""
-    from mazu_tpu.containers.unitig_set import UnitigSet
-    from mazu_tpu.io.cuttlefish import CfFiles
     from mazu_tpu.kphf.sshash import SSHash, sshash_k2u
 
-    if not os.path.exists(CHR7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    us, _ = UnitigSet.from_cf(CfFiles(CHR7))
+    us = _index().k2u.unitigs
     k2u = SSHash.from_unitig_set(us, 15, skew_param=4, engine="fast32")
     d1 = k2u.device_arrays(
         prefix_kind="grouped16", pos_kind="packed", mphf_rows=True

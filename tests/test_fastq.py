@@ -53,12 +53,13 @@ def test_fastq_malformed(tmp_path):
         list(read_fastq(str(p)))
 
 
-def test_map_file_fastq_equals_fasta(tmp_path):
+def test_map_file_fastq_equals_fasta(tmp_path, monkeypatch):
     if not os.path.exists(TINY + ".cf_seg"):
         pytest.skip("fixture missing")
     from mazu_tpu.index.mapping import ReadMapper
     from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
 
+    monkeypatch.setenv("MAZU_HBM_BUDGET", "8e9")  # the CPU reports no limit
     idx = piscem_index_from_cf_prefix(TINY, w=3, skew_param=2)
     reads = [seq for _, seq in read_fasta(TINY + ".fa")]
     fq = tmp_path / "reads.fastq.gz"

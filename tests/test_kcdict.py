@@ -1,17 +1,21 @@
 """KCDict (cuckoo k-mer dictionary) must agree exactly with SSHash."""
 
-import os
-
 import numpy as np
 import pytest
 
 from mazu_tpu.index.modindex import get_ref_pos_padded
-from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
+from mazu_tpu.index.piscem_index import piscem_index_from_spt
+from mazu_tpu.synth import toy_spt
 
-from conftest import TEST_DATA
+TINY, CHR = "tiny", "chr"
 
-TINY = os.path.join(TEST_DATA, "cf", "tiny", "tiny")
-CHR7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
+
+def _index(fixture, w, engine):
+    """Seeded stand-ins for the cuttlefish fixtures (mazu_tpu.synth.toy_spt):
+    ``tiny`` 32 unitigs of 200 bases, ``chr`` 256 of 500, both with planted
+    heavy and mid-depth minimizer buckets and three-occurrence unitigs."""
+    size = dict(seed=1) if fixture == TINY else dict(n_seqs=256, seq_len=500)
+    return piscem_index_from_spt(toy_spt(w=w, **size)[0], w, 64, engine=engine)
 
 
 def _work(index, n, seed=0):
@@ -30,10 +34,10 @@ def _work(index, n, seed=0):
     return work
 
 
-@pytest.mark.parametrize("prefix,w", [(TINY, 5), (CHR7, 15)])
-def test_kcdict_equals_sshash(prefix, w):
-    a = piscem_index_from_cf_prefix(prefix, w, engine="direct")
-    b = piscem_index_from_cf_prefix(prefix, w, engine="cuckoo")
+@pytest.mark.parametrize("fixture,w", [(TINY, 5), (CHR, 15)])
+def test_kcdict_equals_sshash(fixture, w):
+    a = _index(fixture, w, engine="direct")
+    b = _index(fixture, w, engine="cuckoo")
     work = _work(a, 8192)
     mo = max(1, a.max_occs())
     ra = get_ref_pos_padded(a.device_arrays(fused=True), work, np, mo)
@@ -53,7 +57,7 @@ def test_kcdict_jit_and_main_phase():
 
     from mazu_tpu.index.twophase import TwoPhaseIndexQuery
 
-    idx = piscem_index_from_cf_prefix(TINY, 5, engine="cuckoo")
+    idx = _index(TINY, 5, engine="cuckoo")
     work = _work(idx, 512)
     mo = max(1, idx.max_occs())
     arrays = jax.device_put(idx.device_arrays(fused=True))
@@ -80,5 +84,5 @@ def test_kcdict_jit_and_main_phase():
 def test_kcdict_validate_self():
     from mazu_tpu.index.validate import validate_k2u_self
 
-    idx = piscem_index_from_cf_prefix(TINY, 5, engine="cuckoo")
+    idx = _index(TINY, 5, engine="cuckoo")
     validate_k2u_self(idx.k2u)

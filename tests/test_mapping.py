@@ -1,24 +1,18 @@
-"""Array-native serving decode (round 5, VERDICT r4 #5): BatchHits CSR
+"""Array-native serving decode: BatchHits CSR
 results must equal the legacy per-k-mer list decode exactly on both
 serving drivers, and ReadMapper must stay on the array path."""
-
-import os
 
 import numpy as np
 import pytest
 
-from tests.conftest import TEST_DATA
-
-CHR7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-
 
 @pytest.fixture(scope="module")
 def chr7_idx():
-    from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
+    """Seeded index: 256 unitigs of 500 bases with planted heavy and
+    mid-depth minimizer buckets (mazu_tpu.synth.toy_spt)."""
+    from mazu_tpu.synth import toy_index
 
-    if not os.path.exists(CHR7 + ".cf_seg"):
-        pytest.skip("chr7 fixture unavailable")
-    return piscem_index_from_cf_prefix(CHR7, w=15, engine="direct", skew_param=4)
+    return toy_index(n_seqs=256, seq_len=500, skew_param=4)
 
 
 def _work(idx, n=3000, seed=3):
@@ -60,10 +54,11 @@ def test_compact_batch_equals_eager(chr7_idx):
             assert sorted(x) == sorted(y)
 
 
-def test_readmapper_array_path_and_lazy_hits(chr7_idx):
+def test_readmapper_array_path_and_lazy_hits(chr7_idx, monkeypatch):
     from mazu_tpu.index.mapping import ReadMapper
     from mazu_tpu.kmer import codes_to_seq
 
+    monkeypatch.setenv("MAZU_HBM_BUDGET", "8e9")  # the CPU reports no limit
     idx = chr7_idx
     rng = np.random.default_rng(11)
     us = idx.k2u.unitigs  # piscem refs are lengths-only; read from useq
@@ -78,6 +73,7 @@ def test_readmapper_array_path_and_lazy_hits(chr7_idx):
     reads[3] = reads[3][:50] + "N" + reads[3][51:]  # window restart
     reads.append("N" * 40)  # zero valid k-mers
     m = ReadMapper(idx)
+    assert m.config.tier == "speed" and type(m.tp).__name__ == "TwoPhaseIndexQuery"
     out = m.map_reads(reads)
     # the mapper must be on the array path: hits decode lazily
     assert out[0]._hits is None and out[0]._batch is not None

@@ -9,22 +9,26 @@ engine's on the same index (reference behavior: src/kphf/mod.rs:58-66).
 import numpy as np
 import pytest
 
-from conftest import TEST_DATA
-
 from mazu_tpu.containers.unitig_set import UnitigSet
 from mazu_tpu.index.modindex import ModIndex, get_ref_pos_compact
 from mazu_tpu.index.pipeline import OneGraphIndexQuery
 from mazu_tpu.index.validate import validate_k2u_self
-from mazu_tpu.io.cuttlefish import CfFiles
 from mazu_tpu.kmer import revcomp
 from mazu_tpu.kphf.kcdict import KCDict, kcdict_k2u
+from mazu_tpu.synth import toy_spt
+
+W = 5  # minimizer width of the SSHash cross-checks on the small-k fixture
+
+
+def _tiny_spt():
+    """32 seeded unitigs of 100 bases at k=15, with planted minimizer
+    buckets and three-occurrence unitigs (mazu_tpu.synth.toy_spt)."""
+    return toy_spt(n_seqs=32, seq_len=100, k=15, w=W, seed=3)[0]
 
 
 @pytest.fixture(scope="module")
 def tiny_us():
-    cf = CfFiles(f"{TEST_DATA}/cf/tiny/tiny")
-    us, _ = UnitigSet.from_cf(cf)
-    return us
+    return _tiny_spt().unitigs
 
 
 def test_mono_validate_self(tiny_us):
@@ -50,9 +54,11 @@ def test_mono_forced_side_table():
 def test_mono_misses(tiny_us):
     kc = KCDict.from_unitig_set(tiny_us, scheme="mono", load=0.0625)
     d = kc.device_arrays()
-    known = set(tiny_us.all_canonical_kmers().tolist())
+    known_arr = tiny_us.all_canonical_kmers()
+    known = set(known_arr.tolist())
     rng = np.random.default_rng(0)
     q = rng.integers(0, 1 << (2 * tiny_us.k), 500, dtype=np.uint64)
+    q[::2] = known_arr[rng.integers(0, len(known_arr), 250)]  # half hits
     canon = np.minimum(q, revcomp(q, tiny_us.k))
     r = kcdict_k2u(d, canon, np)
     miss = np.array([c not in known for c in canon.tolist()])
@@ -76,10 +82,8 @@ def test_mono_main_phase_unresolved_semantics():
 
 def test_mono_compact_matches_sshash(yeast_chr7_index=None):
     from mazu_tpu.kphf.sshash import SSHash
-    from mazu_tpu.index.spt import SPT
 
-    cf = CfFiles(f"{TEST_DATA}/cf/tiny/tiny")
-    spt = SPT.from_cf(cf)
+    spt = _tiny_spt()
     us = spt.unitigs
     u2 = spt.piscem_table()
     refs = spt.ref_seq_collection()
@@ -89,16 +93,16 @@ def test_mono_compact_matches_sshash(yeast_chr7_index=None):
     flip = rng.random(len(kms)) < 0.5
     kms[flip] = revcomp(kms[flip], us.k)
 
-    ss = SSHash.from_unitig_set(us, w=3, skew_param=4, engine="direct", bucket_load=0.25)
+    ss = SSHash.from_unitig_set(us, w=W, skew_param=4, engine="direct", bucket_load=0.25)
     idx_ss = ModIndex(ss, u2, refs, index_type="t")
     a_ss = idx_ss.device_arrays(fused=True, pos_kind="inline2")
     mo = max(1, idx_ss.max_occs())
-    o_ss = get_ref_pos_compact(a_ss, kms, np, mo, merge=False, probe_limit=2, m2=64)
+    o_ss = get_ref_pos_compact(a_ss, kms, np, mo, merge=False, probe_limit=2, m2=len(kms))
 
     kc = KCDict.from_unitig_set(us, occ_table=u2, scheme="mono", load=0.25)
     idx_kc = ModIndex(kc, u2, refs, index_type="t")
     a_kc = idx_kc.device_arrays(fused=True)
-    o_kc = get_ref_pos_compact(a_kc, kms, np, mo, merge=False, m2=64)
+    o_kc = get_ref_pos_compact(a_kc, kms, np, mo, merge=False, m2=len(kms))
 
     assert int(OneGraphIndexQuery.checksum(o_ss, np)) == int(
         OneGraphIndexQuery.checksum(o_kc, np)
@@ -109,10 +113,8 @@ def test_mono2_validate_and_compact():
     # mono2: slot rows with the second occurrence inline; displaced keys in
     # the side table; exactness vs the sshash direct engine
     from mazu_tpu.kphf.sshash import SSHash
-    from mazu_tpu.index.spt import SPT
 
-    cf = CfFiles(f"{TEST_DATA}/cf/tiny/tiny")
-    spt = SPT.from_cf(cf)
+    spt = _tiny_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     kc = KCDict.from_unitig_set(us, occ_table=u2, scheme="mono2", load=0.25)
     validate_k2u_self(kc)
@@ -120,12 +122,12 @@ def test_mono2_validate_and_compact():
     rng = np.random.default_rng(2)
     flip = rng.random(len(kms)) < 0.5
     kms[flip] = revcomp(kms[flip], us.k)
-    ss = SSHash.from_unitig_set(us, w=3, skew_param=4, engine="direct", bucket_load=0.25)
+    ss = SSHash.from_unitig_set(us, w=W, skew_param=4, engine="direct", bucket_load=0.25)
     mo = max(1, u2.max_occs())
     a_ss = ModIndex(ss, u2, refs, index_type="t").device_arrays(fused=True, pos_kind="inline2")
     a_kc = ModIndex(kc, u2, refs, index_type="t").device_arrays(fused=True)
-    o_ss = get_ref_pos_compact(a_ss, kms, np, mo, merge=False, probe_limit=2, m2=256)
-    o_kc = get_ref_pos_compact(a_kc, kms, np, mo, merge=False, m2=256)
+    o_ss = get_ref_pos_compact(a_ss, kms, np, mo, merge=False, probe_limit=2, m2=len(kms))
+    o_kc = get_ref_pos_compact(a_kc, kms, np, mo, merge=False, m2=len(kms))
     assert not bool(o_ss["over_budget"]) and not bool(o_kc["over_budget"])
     assert int(OneGraphIndexQuery.checksum(o_ss, np)) == int(
         OneGraphIndexQuery.checksum(o_kc, np)

@@ -19,7 +19,12 @@ from mazu_tpu.io.native import (
     scatter_ranges_gather,
 )
 
-pytestmark = pytest.mark.skipif(not have_native(), reason="no native lib")
+
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if not have_native():
+        pytest.skip("native host library unavailable (no g++ toolchain)")
 
 
 class TestRadixSortPairs:

@@ -6,6 +6,21 @@ import pytest
 jax = pytest.importorskip("jax")
 
 
+def _chr_spt():
+    """Seeded stand-in for a chromosome's cuttlefish tiling: 256 random
+    unitigs of 500 bases with planted heavy and mid-depth minimizer
+    buckets and three-occurrence unitigs (mazu_tpu.synth.toy_spt)."""
+    from mazu_tpu.synth import toy_spt
+
+    return toy_spt(n_seqs=256, seq_len=500)[0]
+
+
+def _chr_index():
+    from mazu_tpu.index.piscem_index import piscem_index_from_spt
+
+    return piscem_index_from_spt(_chr_spt(), 15, 4, engine="direct")
+
+
 def test_graft_entry_compiles():
     import __graft_entry__ as g
 
@@ -24,11 +39,11 @@ def test_bucket_sharded_matches_unsharded():
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    import __graft_entry__ as g
     from mazu_tpu.kphf.sshash import sshash_k2u
     from mazu_tpu.parallel.sharding import make_bucket_sharded_query
+    from mazu_tpu.synth import toy_index
 
-    idx = g._toy_index(n_seqs=16, seq_len=150)
+    idx = toy_index(n_seqs=16, seq_len=150)
     kms = np.concatenate(
         [idx.refs.ref_kmers(i, idx.k) for i in range(4)]
     ).astype(np.uint64)[:256]
@@ -49,11 +64,11 @@ def test_alltoall_routed_query_matches():
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
-    import __graft_entry__ as g
     from mazu_tpu.kphf.sshash import sshash_k2u
     from mazu_tpu.parallel.sharding import make_alltoall_sharded_query
+    from mazu_tpu.synth import toy_index
 
-    idx = g._toy_index(n_seqs=48, seq_len=300)
+    idx = toy_index(n_seqs=48, seq_len=300)
     us = idx.k2u.unitigs
     kms = us.get_kmer_u64(us.kmer_start_positions())
     rng = np.random.default_rng(3)
@@ -79,21 +94,14 @@ def test_fused_sharded_full_query_matches_single_chip():
     """The fused-row sharded path (bucket-sharded inline rows + prefix +
     ctable) must reproduce the single-device get_ref_pos_compact output
     piece by piece: main phase, overflow lanes, compacted heavy phase."""
-    import os
-
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
     from mazu_tpu.index.modindex import get_ref_pos_compact
-    from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
     from mazu_tpu.kmer import revcomp
     from mazu_tpu.parallel.sharding import make_fused_sharded_query
-    from tests.conftest import TEST_DATA
 
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    idx = piscem_index_from_cf_prefix(chr7, 15, engine="direct", skew_param=4)
+    idx = _chr_index()
     us = idx.k2u.unitigs
     kms = us.get_kmer_u64(us.kmer_start_positions())
     rng = np.random.default_rng(5)
@@ -188,7 +196,6 @@ def test_sharded_checkpoint_roundtrip_and_validate(tmp_path):
     from jax.sharding import Mesh
 
     from mazu_tpu.index.modindex import get_ref_pos_compact
-    from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
     from mazu_tpu.index.validate import merge_sharded_out, validate_k2u_self_sharded
     from mazu_tpu.io.sharded_ckpt import (
         load_shard,
@@ -196,10 +203,8 @@ def test_sharded_checkpoint_roundtrip_and_validate(tmp_path):
         save_fused_sharded,
     )
     from mazu_tpu.kmer import revcomp
-    from tests.conftest import TEST_DATA
 
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    idx = piscem_index_from_cf_prefix(chr7, 15, engine="direct", skew_param=4)
+    idx = _chr_index()
     ck = str(tmp_path / "shards")
     save_fused_sharded(ck, idx, n_shards=4, pos_kind="inline2")
     # per-shard files are genuinely partial: each holds ~1/4 of the rows
@@ -325,19 +330,11 @@ def _mono_sharded_case(us, u2, refs, scheme, load, mesh_shape, n=2048, seed=9):
 def test_mono_sharded_full_query_matches_single_chip():
     """Bucket-sharded mono2 (the single-chip bench default engine): exact
     agreement with get_ref_pos_compact on 1x8 and 2x4 meshes."""
-    import os
 
-    from mazu_tpu.index.spt import SPT
-    from mazu_tpu.io.cuttlefish import CfFiles
-    from tests.conftest import TEST_DATA
-
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    spt = SPT.from_cf(CfFiles(chr7))
+    spt = _chr_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     kc = _mono_sharded_case(us, u2, refs, "mono2", 0.25, (1, 8))
-    assert kc.occ32, "chr7 piscem packing should enable the occ32 slot layout"
+    assert kc.occ32, "piscem packing should enable the occ32 slot layout"
     _mono_sharded_case(us, u2, refs, "mono2", 0.25, (2, 4))
 
 
@@ -345,16 +342,8 @@ def test_mono_sharded_side_table_gating():
     """A high-load mono build displaces many keys into the replicated side
     table: phase 2 must stay one-hot (only the h1 owner reports side
     hits) or the psum merge would double-count."""
-    import os
 
-    from mazu_tpu.index.spt import SPT
-    from mazu_tpu.io.cuttlefish import CfFiles
-    from tests.conftest import TEST_DATA
-
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    spt = SPT.from_cf(CfFiles(chr7))
+    spt = _chr_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     kc = _mono_sharded_case(us, u2, refs, "mono", 4.0, (1, 8), n=512)
     assert kc.side is not None and kc.side_T > 0
@@ -364,15 +353,11 @@ def test_mono_sharded_checkpoint_roundtrip_and_validate(tmp_path):
     """>HBM deployment for the mono2 flagship engine: save bucket-sharded
     mono checkpoint, load with per-device placement, validate_self through
     the sharded query."""
-    import os
-
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
     from mazu_tpu.index.modindex import ModIndex, get_ref_pos_compact
-    from mazu_tpu.index.spt import SPT
     from mazu_tpu.index.validate import merge_sharded_out, validate_k2u_self_sharded
-    from mazu_tpu.io.cuttlefish import CfFiles
     from mazu_tpu.io.sharded_ckpt import (
         load_shard,
         make_mono_sharded_query_from_ckpt,
@@ -380,12 +365,8 @@ def test_mono_sharded_checkpoint_roundtrip_and_validate(tmp_path):
     )
     from mazu_tpu.kmer import revcomp
     from mazu_tpu.kphf.kcdict import KCDict
-    from tests.conftest import TEST_DATA
 
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    spt = SPT.from_cf(CfFiles(chr7))
+    spt = _chr_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     kc = KCDict.from_unitig_set(us, occ_table=u2, scheme="mono2", load=0.25)
     idx = ModIndex(kc, u2, refs, index_type="t")
@@ -525,37 +506,21 @@ def _compact_sharded_case(
 def test_compact_sharded_query_matches_single_chip():
     """Bucket-sharded CAPACITY tier (direct + packed pos — the multi-Gbp
     layout): exact vs the padded oracle on 1x8 and 2x4 meshes."""
-    import os
 
-    from mazu_tpu.index.spt import SPT
-    from mazu_tpu.io.cuttlefish import CfFiles
-    from tests.conftest import TEST_DATA
-
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    spt = SPT.from_cf(CfFiles(chr7))
+    spt = _chr_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     _compact_sharded_case(us, u2, refs, (1, 8))
     _compact_sharded_case(us, u2, refs, (2, 4), plim=2)
 
 
 def test_compact_sharded_bpos_useqrec_matches():
-    """Round 5 (VERDICT r4 #1): the committed fastest capacity layout —
+    """Round 5: the committed fastest capacity layout —
     sharded bpos bucket-inline rows + replicated useqrec window records
     (the 8.1M single-chip config) — deployed across bucket shards, exact
     vs the padded oracle on 1x8 and 2x4 meshes. Also covers bpos WITHOUT
     useqrec (generic probe + bpos pos window)."""
-    import os
 
-    from mazu_tpu.index.spt import SPT
-    from mazu_tpu.io.cuttlefish import CfFiles
-    from tests.conftest import TEST_DATA
-
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("chr7 fixture missing")
-    spt = SPT.from_cf(CfFiles(chr7))
+    spt = _chr_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     _compact_sharded_case(
         us, u2, refs, (1, 8), plim=2, bucket_inline=True, useqrec=True
@@ -572,8 +537,6 @@ def test_compact_sharded_checkpoint_roundtrip(tmp_path):
     """>HBM deployment for the CAPACITY tier: save a bucket-sharded
     compact checkpoint (direct engine + packed pos), load with per-device
     placement, and answer identically to the padded oracle."""
-    import os
-
     import jax.numpy as jnp
     from jax.sharding import Mesh
 
@@ -582,8 +545,6 @@ def test_compact_sharded_checkpoint_roundtrip(tmp_path):
         get_ref_pos_padded,
         merge_compact_k2u,
     )
-    from mazu_tpu.index.spt import SPT
-    from mazu_tpu.io.cuttlefish import CfFiles
     from mazu_tpu.io.sharded_ckpt import (
         load_shard,
         make_compact_sharded_query_from_ckpt,
@@ -591,12 +552,8 @@ def test_compact_sharded_checkpoint_roundtrip(tmp_path):
     )
     from mazu_tpu.kmer import revcomp
     from mazu_tpu.kphf.sshash import SSHash
-    from tests.conftest import TEST_DATA
 
-    chr7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
-    if not os.path.exists(chr7 + ".cf_seg"):
-        pytest.skip("fixture missing")
-    spt = SPT.from_cf(CfFiles(chr7))
+    spt = _chr_spt()
     us, u2, refs = spt.unitigs, spt.piscem_table(), spt.ref_seq_collection()
     ss = SSHash.from_unitig_set(
         us, w=15, skew_param=8, engine="direct", bucket_load=0.5
@@ -651,8 +608,8 @@ def test_g3_sharded_real_ckpt():
     """Round-4 task 7: the REAL 3Gbp direct-engine checkpoint sharded
     across the 8-device CPU mesh, end-to-end from files (the >HBM
     human-genome deployment). Skips when the 21.7GB ckpt is not on disk
-    (it is rebuilt each round by labs/host_gbp_build.py; the proof run
-    with numbers is labs/host_g3_sharded_proof.py -> STATUS round 4)."""
+    (labs/host_gbp_build.py builds it; labs/host_g3_sharded_proof.py is
+    the proof run)."""
     import os
     import subprocess
     import sys

@@ -1,21 +1,15 @@
 """PipelinedIndexQuery must return exactly ModIndex's answers."""
 
-import os
-
 import numpy as np
 
-from mazu_tpu.index.piscem_index import piscem_index_from_cf_prefix
 from mazu_tpu.index.pipeline import PipelinedIndexQuery
-
-from conftest import TEST_DATA
-
-CHR7 = os.path.join(TEST_DATA, "cf", "yeast_chr7", "yeast_chr7")
+from mazu_tpu.synth import toy_index
 
 
 def test_pipelined_eager_matches_modindex():
     from mazu_tpu.kmer import revcomp
 
-    idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct")
+    idx = toy_index(n_seqs=256, seq_len=500, skew_param=64)
     us = idx.k2u.unitigs
     kms = us.get_kmer_u64(us.kmer_start_positions())
     rng = np.random.default_rng(9)
@@ -33,7 +27,7 @@ def test_pipelined_eager_matches_modindex():
 
 
 def test_pipelined_multi_batch():
-    idx = piscem_index_from_cf_prefix(CHR7, 15, engine="direct")
+    idx = toy_index(n_seqs=256, seq_len=500, skew_param=64)
     us = idx.k2u.unitigs
     kms = us.get_kmer_u64(us.kmer_start_positions())
     n = 1024
